@@ -1,10 +1,10 @@
-"""Audio Raytracing Studio — TPU-native rebuild.
+"""Audio Raytracing Studio — accelerator-native rebuild.
 
-A JAX/XLA/Pallas reimplementation of CipherCorePro/Audio-Raytracing-Studio:
+A JAX/XLA reimplementation of CipherCorePro/Audio-Raytracing-Studio:
 procedural impulse-response synthesis ("audio raytracing"), FFT convolution
 reverb, 3D surround panning, channel-layout mapping, BS.1770 loudness
-metering, v4 JSON presets, and the same 4-tab web UI — rebuilt TPU-first
-(batched static-shape graphs, device meshes, Pallas kernels) rather than
+metering, v4 JSON presets, and the same 4-tab web UI — rebuilt for
+accelerators (batched static-shape graphs, device meshes) rather than
 translated.
 
 Reference behavior citations throughout point into

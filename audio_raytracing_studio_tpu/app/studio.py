@@ -8,7 +8,7 @@ profiler tab, preset editor tab, help tab; the same preset-control ordering,
 0.0.0.0:8861.
 
 gradio is an optional dependency — import this module only to serve the UI.
-All compute routes through app.api (the jitted TPU pipeline).
+All compute routes through app.api (the jitted device pipeline).
 """
 
 from __future__ import annotations
@@ -160,7 +160,7 @@ def build_demo(store: PresetStore | None = None):
     with gr.Blocks(theme=theme, title=f"Audio Raytracing Studio {config.APP_VERSION}") as demo:
         # --- Tab 1: processing & positioning ---
         with gr.Tab("🎶 Audio-Verarbeitung & Positionierung"):
-            gr.Markdown(f"# 🎶 Audio Raytracing Studio {config.APP_VERSION} (TPU)")
+            gr.Markdown(f"# 🎶 Audio Raytracing Studio {config.APP_VERSION}")
             with gr.Row():
                 with gr.Column(scale=1):
                     audio_input = gr.Audio(label="🔊 Audio hochladen", type="filepath", show_download_button=False)
@@ -251,7 +251,7 @@ def build_demo(store: PresetStore | None = None):
             gr.Markdown(
                 f"""
                 ## 🎶 Audio Raytracing Studio {config.APP_VERSION} — Hilfe
-                TPU-native Rebuild: identische Bedienung und Presets (v4), Rendering
+                JAX-Rebuild: identische Bedienung und Presets (v4), Rendering
                 über einen XLA-kompilierten JAX-Graphen (IR-Synthese, FFT-Faltung,
                 3D-Panning, Kanal-Mapping, BS.1770-Metering on-device).
                 **Bedienung:** 1. Audio laden. 2. Modus wählen (Intern/Extern IR).

@@ -1,4 +1,4 @@
-"""Audio analyzer CLI — the sidecar tool's capabilities, TPU-native.
+"""Audio analyzer CLI — the sidecar tool's capabilities, on the device.
 
 Covers /root/reference/analyser.py (a standalone Streamlit app shelling out
 to ffmpeg/pydub): file analysis (rate/channels/duration/LUFS), normalization
@@ -212,7 +212,7 @@ def main(argv=None) -> int:
     c.add_argument("--samplerate", type=int, default=None,
                    help="also rate-convert (on-device polyphase resampler)")
 
-    args = ap.parse_args(argv)  # parse first: --help shouldn't init the TPU
+    args = ap.parse_args(argv)  # parse first: --help shouldn't init JAX
     from ..utils.runtime import ensure_backend
 
     ensure_backend()

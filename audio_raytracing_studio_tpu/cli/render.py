@@ -1,4 +1,4 @@
-"""Headless batch renderer — the TPU-native CLI entry point.
+"""Headless batch renderer — the CLI entry point.
 
 New capability vs the reference (which is UI-only): render one clip or a
 whole parameter sweep from the command line, using presets (v4 JSON) or
@@ -72,7 +72,7 @@ def add_param_flags(ap: argparse.ArgumentParser) -> None:
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
-        prog="ars-render", description="Audio Raytracing Studio TPU — headless renderer"
+        prog="ars-render", description="Audio Raytracing Studio — headless renderer"
     )
     ap.add_argument(
         "input", help="input audio file (WAV/FLAC/AIFF/OGG/MP3/AAC/M4A)"

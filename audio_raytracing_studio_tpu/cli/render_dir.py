@@ -3,7 +3,7 @@
 Renders every audio file in a directory (WAV/FLAC/AIFF/OGG/MP3/M4A —
 anything the native codecs or the FFmpeg-library tier read, as long as
 the header declares a frame count) through the batched SPMD pipeline, keeping
-the TPU busy: clips are bucketed by (rate, length quantized to a
+the device busy: clips are bucketed by (rate, length quantized to a
 half-second grid) using header-only probes, each bucket reuses one compiled
 executable, and while the device renders micro-batch *i* a thread pool reads
 micro-batch *i+1* and writes the finished outputs.  Metrics are computed on

@@ -20,10 +20,8 @@ from .fftops import next_power_of_two
 def fast_fft_length(n: int) -> int:
     """Smallest hardware-fast transform length ≥ n (static host computation).
 
-    Candidates are 2^k and 3·2^k — both native fast paths on this TPU's FFT
-    (measured: a 3·2^20 rfft runs at 2^22 speed with ~5e-7 accuracy), so
-    admitting the radix-3 sizes cuts worst-case zero-pad overhead from 2×
-    to 1.33×.  Zero-padding is numerically exact for linear convolution.
+    Candidates are 2^k and 3·2^k (both fast transform sizes), so admitting
+    the radix-3 sizes cuts worst-case zero-pad overhead from 2× to 1.33×.  Zero-padding is numerically exact for linear convolution.
     """
     if n <= 1:
         return 1
@@ -58,19 +56,13 @@ def convolve_full(
     n = signal.shape[-1]
     l = kernels.shape[-1]
     need = max(out_length, n + l - 1)
-    # Batched transforms at 3·2^k lengths hit a pathological tiled layout on
-    # this backend once the batch grows: the radix-3 factor lands in a
-    # (2..8, 128)-tiled minor dim and pads 8-16× (measured 768 MB → 6 GB of
-    # HLO temps under the batched exact render, HBM OOM at B=8 — including
-    # with the batch dims flattened around the transform; vmap re-batches
-    # them).  The hazard is specific to the rank-4 (batch, K, C, nfft) shape
-    # this function produces under vmap — the rank-3 (batch, C, nfft) shapes
-    # of convolve_combined/convolve_pairwise are measured clean at B=48
-    # (BENCH_HISTORY).  Small batches (single clip, streaming chunks) lay
-    # out fine too, so the cheap 3·2^k grid stays the default; batched
-    # renderers MUST pass ``pow2=True`` (via StaticSpec.pow2_conv) — under
-    # vmap this trace only sees the per-example shape, so no heuristic here
-    # can detect the batch.
+    # Batched renderers pass ``pow2=True`` (via StaticSpec.pow2_conv): the
+    # rank-4 (batch, K, C, nfft) shape this function produces under vmap
+    # padded 8-16× in memory at 3·2^k lengths on the accelerator this was
+    # first built for.  Single clips and streaming chunks keep the cheaper
+    # 3·2^k grid.  Whether batched 3·2^k grids are fine on the GPU is an
+    # open A/B (ROADMAP D2) — under vmap this trace only sees the
+    # per-example shape, so no heuristic here can detect the batch.
     if kernel_gains is not None:
         # gains are (K, F) per-bin curves built by the caller — the grid is
         # fixed by their bin count, so a pow2 override cannot desync them
@@ -160,8 +152,8 @@ def convolve_combined(
     ker_f = fftops.rfft_rows(fftops.pad_last(kernels, nfft))  # (K, F)
     if kernel_gains is not None:
         ker_f = ker_f * kernel_gains
-    # elementwise weighted sum over the tiny K axis (VPU; a tensordot would
-    # hit the bf16 MXU path — see CLAUDE.md)
+    # elementwise weighted sum over the tiny K axis (a default-precision
+    # tensordot could run at reduced precision on an accelerator)
     combined = jnp.sum(weights.astype(ker_f.dtype)[:, None] * ker_f, axis=0)  # (F,)
     full = fftops.irfft_rows(sig_f * combined)
     return full[..., :out_length].astype(jnp.float32)

@@ -1,11 +1,12 @@
-"""Exact arbitrary-length FFTs on TPU via Bluestein's chirp-z transform.
+"""Exact arbitrary-length FFTs via Bluestein's chirp-z transform.
 
 The reference applies its EQ and air-absorption filters as circular gain
 curves at the *exact* signal length (raytracer_studio.py:318, :392) — a
-parity-bearing choice (see ops.filters).  XLA's TPU backend only has a fast
-path for power-of-two FFTs; arbitrary lengths lower to a dense O(n²) DFT
-matmul that is infeasible at render lengths (~10⁷ samples would want a
-67 GB matrix).  Bluestein re-expresses a length-n DFT as one length-m
+parity-bearing choice (see ops.filters).  This module keeps every device
+transform at a power-of-two (or 3·2^k) length; whether cuFFT's native
+arbitrary-length transforms can replace it is an open A/B (ROADMAP D1),
+and the traced-length EQ (ops.chirp) needs it regardless.  Bluestein
+re-expresses a length-n DFT as one length-m
 (power-of-two, m ≥ 2n−1) convolution:
 
     X[k] = w[k] · IFFT_m( FFT_m(x·w) · B )[k],   w[k] = exp(−iπ k² / n)
@@ -31,10 +32,10 @@ def is_power_of_two(n: int) -> bool:
 def _rows_transform(fn, grid_of=None):
     """Last-axis device transform that batches FLAT (custom_vmap).
 
-    Rank matters on this backend: the same 96 pow2-FFT rows cost 197 ms as
-    a rank-3 (48, 2, m) op but 142 ms as a flat (96, m) op (measured on
-    chip, tools/profile_conv.py — BENCH_HISTORY round-4 session 2).  The
-    batched renderers build their transforms under ``jax.vmap``, where a
+    Rank mattered on the accelerator this was first built for: the same 96
+    pow2-FFT rows ran ~1.4× faster as a flat (96, m) op than as a rank-3
+    (48, 2, m) op (tools/profile_conv.py; not yet measured on the GPU,
+    ROADMAP D1).  The batched renderers build their transforms under ``jax.vmap``, where a
     reshape inside the per-example trace cannot collapse the batch axis —
     so the collapse is expressed as a *custom batching rule*: under vmap
     (nested vmaps included — the rule re-enters itself) all leading batch
@@ -42,9 +43,7 @@ def _rows_transform(fn, grid_of=None):
     are free (leading-dim collapse of a row-major array is a bitcast).
 
     Only POWER-OF-TWO grids flatten.  The real 3·2^k transforms are
-    rank-SENSITIVE the other way: rank-3 (48, 2, 3·2^k) rffts are measured
-    clean while other batched 3·2^k layouts mis-tile 8-16× (CLAUDE.md), so
-    at a non-pow2 grid the rule reproduces the pre-flattening batched op
+    left alone: at a non-pow2 grid the rule reproduces the pre-flattening batched op
     bit-for-bit (fft along the last axis is row-independent, so applying
     ``fn`` to the full-rank batched array IS what vmap would have built).
     ``grid_of`` maps the batched array's last dim to the time-domain grid
@@ -52,7 +51,7 @@ def _rows_transform(fn, grid_of=None):
 
     ``ARS_FLAT_FFT=0`` (read at import) disables the custom rule entirely
     — every call lowers exactly like the raw jnp.fft op, batched or not —
-    the A/B switch for isolating this change in on-chip measurements.
+    the A/B switch for isolating this change in measurements on the card.
     """
     grid_of = grid_of or (lambda last: last)
     import os

@@ -1,6 +1,6 @@
 """On-device impulse-response synthesis (the "audio raytracer").
 
-TPU-first reformulation of the reference's Python reflection loop and noise
+Accelerator-first reformulation of the reference's Python reflection loop and noise
 shaping (/root/reference/raytracer_studio.py:238-308):
 
 - early reflections: the per-tap interpreted loop (:261-268) becomes one
@@ -83,9 +83,9 @@ def hash_draws(
 ) -> Tuple[jax.Array, jax.Array, jax.Array]:
     """Draw (delays, strengths, noise) from the counter-based stream (ops.rng).
 
-    Every value is a pure function of (seed, stream, index) — the SAME values
-    the fused Pallas bank generates on-core for the same seed, so jnp and
-    Pallas backends render identical audio (PARITY.md "seed streams v2").
+    Every value is a pure function of (seed, stream, index), so every
+    renderer (batched, streaming, sequence-parallel) draws identical values
+    for the same seed (PARITY.md "seed streams v2").
 
     Uses the full static MAX_REFLECTIONS budget; taps beyond the shape's
     reflection_count are masked out downstream, so the same seed gives the
@@ -171,9 +171,7 @@ def early_tap_amps(
 ) -> jax.Array:
     """The parity-bearing early-tap amplitude law (ref :263-267):
     strength · (1−absorption) · clip(directionality, 0.1, 1) · distance
-    falloff.  The ONE definition — shared by this jnp renderer and both
-    Pallas kernels (ops.ir_synth_pallas), whose seed-parity contract
-    (PARITY.md "seed streams v2") requires the copies to agree bit-for-bit.
+    falloff.  The ONE definition of it on the device path.
     """
     falloff = 1.0 - (
         delays.astype(jnp.float32) / float(actual_max_early_delay)

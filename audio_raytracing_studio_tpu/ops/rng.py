@@ -1,26 +1,21 @@
-"""Counter-based random stream shared by the jnp and Pallas IR backends.
+"""Counter-based random stream for IR synthesis.
 
 The reference uses an unseeded global ``np.random`` (raytracer_studio.py:
-262-285); round 1 replaced it with two *different* deterministic streams
-(jax.random in the jnp path, the TPU core PRNG in the Pallas bank), so the
-same seed produced different audio per backend.  This module unifies them:
-every random draw is a pure function of ``(seed, stream, index)`` computed
-with the same uint32 arithmetic in both backends —
+262-285).  Here every random draw is a pure function of
+``(seed, stream, index)`` computed with uint32 arithmetic —
 
     bits(index) = lowbias32(stream_mix + index * PHI)
     stream_mix  = lowbias32(seed ^ stream_salt)
 
 ``lowbias32`` is a public-domain 32-bit finalizer (a Murmur3-style
-xor-shift/multiply avalanche) — pure VPU integer ops, so the identical code
-runs inside a Pallas TPU kernel, under jit on any backend, and in the Pallas
-interpreter.  Counter-based draws are order-invariant: a kernel program can
-regenerate any neighbour block's samples (smoothing halos) without
-communication, and splitting an IR into column blocks cannot change the
-audio.
+xor-shift/multiply avalanche) — pure elementwise integer ops, identical
+under jit on any backend and on the host.  Counter-based draws are
+order-invariant: any block of an IR can be regenerated on its own, so a
+blocked or sharded synthesis cannot change the audio.
 
 Contract (PARITY.md "seed streams v2"): for a given ``seed``,
-``ops.ir_synth.hash_draws`` (jnp) and the fused Pallas bank draw identical
-values; both therefore render identical audio for identical parameters.
+``ops.ir_synth.hash_draws`` draws the same values on every backend and in
+every renderer (batched, streaming, sequence-parallel).
 """
 
 from __future__ import annotations

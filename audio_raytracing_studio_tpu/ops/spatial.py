@@ -2,8 +2,7 @@
 
 The reference's per-channel assignments (raytracer_studio.py:464-505) and
 mapping branches (:517-571) become einsums against small mixing matrices plus
-two static integer delays — the form XLA fuses into the surrounding graph and
-the MXU can batch.
+two static integer delays — the form XLA fuses into the surrounding graph.
 """
 
 from __future__ import annotations
@@ -54,10 +53,10 @@ def pan_matrix(
 def apply_pan(audio: jnp.ndarray, matrix: jnp.ndarray) -> jnp.ndarray:
     """audio (..., 2, n) @ pan matrix (2, 6) → (..., 6, n).
 
-    Channel mixes are deliberately elementwise (VPU), not einsum: the TPU
-    default matmul path runs bf16 on the MXU — ~0.3% error on every sample,
-    far past the 1e-3 parity budget — and the 2×6 contraction is too small
-    to earn its MXU layout shuffles anyway.
+    Channel mixes are deliberately elementwise, not einsum: a
+    default-precision matmul may run in bf16/TF32 on an accelerator —
+    ~0.3% error on every sample, far past the 1e-3 parity budget — and the
+    2×6 contraction is too small to earn a matmul anyway.
     """
     left = audio[..., 0, :]
     right = audio[..., 1, :]

@@ -2,7 +2,7 @@
 
 This is an independent, vectorized reimplementation of the reference's
 behavior (/root/reference/raytracer_studio.py) used as (a) the golden test
-oracle for the JAX/TPU pipeline (≤1e-3 max-abs contract from BASELINE.json)
+oracle for the JAX pipeline (≤1e-3 max-abs contract from BASELINE.json)
 and (b) the CPU baseline timing harness.  Unlike the reference it is fully
 deterministic: all random draws come from an explicit ``IRDraws`` bundle or a
 seeded Generator (the reference uses the unseeded global ``np.random`` at

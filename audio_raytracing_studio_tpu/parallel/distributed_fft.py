@@ -6,7 +6,7 @@ length even by a few samples moves the brick-wall cutoff bins and deviates
 ~1e-2, measured).  In long-render mode the signal's sample axis is sharded
 over the mesh's "block" axis, so the exact transform must be distributed.
 
-TPU-first construction, all ICI collectives and pow2 local FFTs:
+Construction: collectives over the device interconnect and pow2 local FFTs:
 
 1. **Four-step FFT** at m = 2^a = D·B_m over blocks: a D-point DFT across
    devices (D-step `ppermute` ring accumulation), twiddle

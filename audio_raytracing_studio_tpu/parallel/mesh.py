@@ -1,10 +1,9 @@
 """Device-mesh helpers.
 
 The framework's only communication abstraction is jax.sharding (SURVEY §5.8):
-XLA emits ICI collectives inside a slice; multi-host scale-out goes through
-jax.distributed + DCN.  The reference has no distributed backend at all —
-these axes exist to hit the ≥100×-realtime-per-chip batched-rendering target
-and to scale past one chip.
+XLA emits the collectives over the device interconnect; multi-host
+scale-out goes through jax.distributed.  The reference has no distributed
+backend at all — these axes exist to scale rendering past one device.
 
 Axes:
   "data"  — independent clips / parameter-sweep points (embarrassingly

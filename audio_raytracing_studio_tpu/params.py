@@ -5,7 +5,7 @@ All *scalar* derivations (hall presets, room-size scaling, directionality,
 early/late level adaptation, IR geometry) run on host in float64 — exactly the
 arithmetic the reference performs in Python/NumPy scalar space
 (/root/reference/raytracer_studio.py:157-236, :168-182, :184-209) — and feed
-the jitted TPU graph as traced scalars.  Only array math runs on device.
+the jitted device graph as traced scalars.  Only array math runs on device.
 
 Shapes (IR length, split point, smoothing width) derived here are *static*
 per-compile values; changing them triggers one recompile per shape bucket.

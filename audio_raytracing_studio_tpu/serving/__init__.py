@@ -1,7 +1,7 @@
 """Serving layer: dynamic micro-batching render service + HTTP job API.
 
-The batched SPMD pipeline reaches its throughput numbers at batch sizes
-that feed the MXU (bench.py: B=48); a request-per-render server wastes
+The batched SPMD pipeline reaches its throughput at batch sizes that
+fill the device (bench.py: B=48); a request-per-render server wastes
 that.  ``RenderService`` (serving.batcher) queues concurrent jobs, groups
 them by XLA static signature, and dispatches each group as ONE
 ``render_batch`` call; ``serve`` (serving.service) exposes it as a

@@ -457,10 +457,6 @@ def main(argv=None) -> int:
     ap.add_argument("--max-batch", type=int, default=16)
     ap.add_argument("--max-wait-ms", type=float, default=100.0)
     ap.add_argument(
-        "--ir-backend", choices=("jnp", "pallas"), default="jnp",
-        help="RIR synthesis backend (pallas = fused TPU kernel)",
-    )
-    ap.add_argument(
         "--fast-filters", action="store_true",
         help="conv-grid air absorption (≤2e-4 deviation, fastest path)",
     )
@@ -492,7 +488,6 @@ def main(argv=None) -> int:
     service = RenderService(
         max_batch=args.max_batch,
         max_wait_ms=args.max_wait_ms,
-        ir_backend=args.ir_backend,
         fast_filters=args.fast_filters,
         streaming_threshold_s=args.streaming_threshold_s,
         chunk_seconds=args.chunk_seconds,

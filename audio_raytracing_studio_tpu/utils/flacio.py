@@ -4,7 +4,7 @@ The reference studio reads FLAC through soundfile/libsndfile
 (/root/reference/raytracer_studio.py:1013; README.md names FLAC as a
 native input format) and converts formats via pydub/ffmpeg
 (/root/reference/analyser.py:73-83).  This image ships neither library,
-so the TPU rebuild carries its own codec in the host-IO shell:
+so the rebuild carries its own codec in the host-IO shell:
 
 Decoder — the full subset needed to read real-world files:
   * CONSTANT / VERBATIM / FIXED(0-4) / LPC(1-32) subframes

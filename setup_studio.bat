@@ -1,11 +1,11 @@
 @echo off
 rem Install the optional extras for the full studio experience.
-rem The core framework needs only jax, numpy, scipy (preinstalled on TPU VMs).
+rem The core framework needs only jax, numpy, scipy (see pyproject.toml).
 rem Windows counterpart of setup_studio.sh (reference ships both .sh and .bat:
 rem /root/reference/setup_raytracer_studio.bat).
 
 echo ==========================================
-echo  Audio Raytracing Studio (TPU) - Setup
+echo  Audio Raytracing Studio - Setup
 echo ==========================================
 echo.
 

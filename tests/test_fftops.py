@@ -143,8 +143,8 @@ def test_affine_circular_filters_match_bluestein(rng):
         )
         assert np.max(np.abs(fast - exact)) < 5e-5, fname
         # non-stereo shapes fall back to the real rfft roundtrip; batched
-        # renderers force power-of-two wrap grids there (3·2^k real FFTs
-        # mis-tile at rank 3 on the TPU backend) — same identity
+        # renderers force power-of-two wrap grids there (ROADMAP D2) —
+        # same identity
         x1 = x[:1]
         exact1 = np.asarray(
             fftops.apply_circular_gain(jnp.asarray(x1), gain)
@@ -198,9 +198,9 @@ def test_radix3_pair_packed_under_vmap(rng):
 class TestFlatBatching:
     """*_rows transforms: under vmap, batch dims must collapse into rows.
 
-    Rank matters on the TPU backend: the same 96 pow2-FFT rows measured
-    197 ms rank-3 but 142 ms flat (tools/profile_conv.py, BENCH_HISTORY
-    round-4 session 2).  These tests pin (a) the custom batching rule's
+    Flat rows were the faster layout on the accelerator this was first
+    built for (tools/profile_conv.py; open on the GPU, ROADMAP D1).  These
+    tests pin (a) the custom batching rule's
     numerics against per-example application and (b) that the lowered
     module really contains only rank-2 FFT ops under (nested) vmap.
     """

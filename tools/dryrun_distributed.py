@@ -42,12 +42,9 @@ def worker(process_id: int, port: int) -> None:
     # persistent executable cache: both workers compile the same modules,
     # and the CI suite re-runs this dryrun every time — warm runs read the
     # executables from disk (cache writes are atomic, racing writers safe)
-    from audio_raytracing_studio_tpu.utils.profiling import (
-        cpu_test_cache_dir,
-        enable_compilation_cache,
-    )
+    from audio_raytracing_studio_tpu.utils.profiling import enable_compilation_cache
 
-    enable_compilation_cache(cpu_test_cache_dir())
+    enable_compilation_cache()
 
     from audio_raytracing_studio_tpu.parallel import mesh as meshlib
 

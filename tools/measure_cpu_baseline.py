@@ -1,7 +1,7 @@
 """Measure the CPU (NumPy/SciPy oracle) realtime factor — the baseline.
 
-The reference publishes no numbers (BASELINE.md), so the baseline the TPU
-build is compared against is the vendored-equivalent oracle rendering the
+The reference publishes no numbers (BASELINE.md), so the baseline the
+accelerator build is compared against is the vendored-equivalent oracle rendering the
 headline config (BASELINE.json config 1: internal Room hall, mono 48 kHz
 60 s clip → stereo) single-threaded on this machine's CPU.
 
